@@ -5,9 +5,8 @@ Beyond the reference (whose sequence loop syncs with the host every
 frame): the whole select -> (track -> replace-lost)* recurrence runs as
 device programs (models/device_sequence), frames are advanced ``CHAIN``
 at a time in one dispatched program each, and the track table + metrics
-are pulled once at the end. This is the BASELINE config-2 serving path —
-52-71k fps at 640x480 x 1000 features on one v5e (BENCH_DETAILS.json
-config2_chain8_fps; see ROOFLINE.md on why chaining matters).
+are pulled once at the end. This is the BASELINE config-2 serving path;
+chaining amortizes the per-dispatch cost over ``chain`` frames.
 """
 
 import os

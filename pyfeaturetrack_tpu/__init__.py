@@ -1,6 +1,6 @@
-"""pyfeaturetrack_tpu — TPU-native KLT feature tracking + SfM front-end.
+"""pyfeaturetrack_tpu — KLT feature tracking + SfM front-end in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
+A JAX/XLA/Pallas framework with the capabilities of
 TimSC/PyFeatureTrack (the Python port of Birchfield's KLT v1.3.4):
 Gaussian pyramids, derivative-of-Gaussian gradients, Shi-Tomasi
 min-eigenvalue feature selection with min-distance suppression, batched

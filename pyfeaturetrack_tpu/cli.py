@@ -19,7 +19,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="pft-track",
         description="Track features through an image sequence "
-                    "(TPU-native KLT).")
+                    "(batched KLT in JAX).")
     ap.add_argument("frames", nargs="+",
                     help="frames in order (PGM natively; any "
                          "PIL-readable format otherwise)")
@@ -160,10 +160,12 @@ def main(argv=None) -> int:
 
     from .config import create_config
     from .errors import KLTSetVerbosity
+    from .utils.cache import enable_compile_cache
     from .models.sequence import track_sequence
     from .utils.io import read_image, write_feature_table
     from .utils.viz import write_feature_list_to_ppm
 
+    enable_compile_cache()
     if args.verbose:
         KLTSetVerbosity(1)
     os.makedirs(args.out, exist_ok=True)

@@ -76,8 +76,8 @@ class TrackerConfig:
     # Debug
     writeInternalImages: bool = False
 
-    # TPU-only storage knob (beyond the reference): dtype of the CACHED
-    # pyramid/gradient levels. "bfloat16" halves the HBM traffic of the
+    # Storage knob (beyond the reference): dtype of the CACHED
+    # pyramid/gradient levels. "bfloat16" halves the memory traffic of the
     # LK gathers (the memory-bound hot loop) at the cost of 8-bit
     # mantissa rounding of the cached intensities/gradients; all window
     # blending/reductions still run float32. Parity modes keep float32.

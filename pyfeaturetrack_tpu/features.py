@@ -58,12 +58,6 @@ class AffineState(NamedTuple):
     y: jax.Array          # [N]
     A: jax.Array          # [N, 2, 2] warp, rows [[Axx, Axy], [Ayx, Ayy]]
     valid: jax.Array      # [N] bool — template captured (aff_img != NULL)
-    # [N] int32 — last check's Gauss-Newton iteration count. PURELY a
-    # performance hint (the vec kernel orders its tiles by it so
-    # persistent stragglers share tiles — DESIGN.md §9); never read by
-    # the math. Optional so pre-round-5 checkpoints restore (None is
-    # normalized to zeros at the affine stage).
-    nit: Optional[jax.Array] = None
 
 
 class FeatureState(NamedTuple):
@@ -96,7 +90,6 @@ def create_feature_list(n_features: int, with_affine: bool = False,
             A=jnp.broadcast_to(jnp.eye(2, dtype=jnp.float32),
                                (n_features, 2, 2)),
             valid=jnp.zeros((n_features,), bool),
-            nit=jnp.zeros((n_features,), jnp.int32),
         )
     return FeatureState(
         x=jnp.full((n_features,), -1.0, jnp.float32),
@@ -118,13 +111,9 @@ def reset_affine(aff: AffineState, drop_mask: jax.Array) -> AffineState:
     """Invalidate templates for features in ``drop_mask`` (= the reference
     freeing aff_img and resetting the warp to identity on track loss)."""
     eye = jnp.broadcast_to(jnp.eye(2, dtype=jnp.float32), aff.A.shape)
-    nit = aff.nit
-    if nit is not None:
-        nit = jnp.where(drop_mask, 0, nit)
     return aff._replace(
         valid=jnp.where(drop_mask, False, aff.valid),
         A=jnp.where(drop_mask[:, None, None], eye, aff.A),
-        nit=nit,
     )
 
 

@@ -104,8 +104,8 @@ def track_chunks_batched(chunk_frames: np.ndarray, init_x, init_y, init_val,
     (frame 0 is the initial selection) plus a DEVICE bool scalar set when
     a refill ran out of top-K candidates (callers should surface it with
     warn_selection_exhausted when they pull the table — pulling it here
-    would be a device->host sync that poisons later dispatch on relay
-    rigs, DESIGN.md rule 3). Pure device path: no host pulls between
+    would be a device->host sync that stalls the queued steps,
+    DESIGN.md rule 3). Pure device path: no host pulls between
     frames. ``replace_lost=True`` refills lost slots each step with the
     on-device selection (ops.select_device) — reference-complete
     example3 semantics at the multi-stream rate.

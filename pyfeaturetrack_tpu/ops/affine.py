@@ -15,10 +15,10 @@ re-verified (and refined) against its FIRST-frame template under a warp:
   affineConsistencyCheck = 1 -> similarity              (4 params)
   affineConsistencyCheck = 2 -> full affine             (6 params)
 
-TPU shape: all features iterate together through a fixed-trip Gauss-Newton
+Batched shape: all features iterate together through a fixed-trip Gauss-Newton
 loop with lane masking; the per-feature PxP normal systems are solved as
 one batched ``jnp.linalg.solve`` (the reference's sequential Gauss-Jordan
-becomes a [N, P, P] LU solve — MXU-friendly). The template store rides in
+becomes one batched [N, P, P] solve). The template store rides in
 ``AffineState`` ([N, T, T] arrays), captured with batched bilinear gathers
 the first frame a feature tracks successfully; the warp A persists across
 frames exactly like the reference's per-feature aff_* fields.
@@ -53,7 +53,6 @@ def make_affine_state(n_features: int, cfg) -> AffineState:
         A=jnp.broadcast_to(jnp.eye(2, dtype=jnp.float32),
                            (n_features, 2, 2)),
         valid=jnp.zeros((n_features,), bool),
-        nit=jnp.zeros((n_features,), jnp.int32),
     )
 
 
@@ -128,8 +127,8 @@ def _affine_track_batch(tmpl, img2, gx2, gy2, x0, y0, A0, check, cfg):
                        precision=lax.Precision.HIGHEST)
 
         # Batched unpivoted Gauss-Jordan (= the reference's
-        # _am_gauss_jordan_elimination, vectorized) — far faster on TPU
-        # than lax LinAlg's pivoted LU for [N, P, P] batches.
+        # _am_gauss_jordan_elimination, vectorized): no pivoting, so the
+        # [N, P, P] batch vectorizes (see ops/linalg).
         d, det = gauss_solve_det(T, e)
         small = jnp.abs(det) < cfg.min_determinant
         status = jnp.where(live & small, KLT_SMALL_DET, status)
@@ -191,8 +190,6 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
     aff = fl_after.aff
     if aff is None or aff.img.shape[-1] != cfg.affine_window_width:
         aff = make_affine_state(fl_after.nFeatures, cfg)
-    if aff.nit is None:   # pre-round-5 checkpoint: normalize the hint
-        aff = aff._replace(nit=jnp.zeros(aff.valid.shape, jnp.int32))
 
     tracked = fl_after.val == KLT_TRACKED
     # Lanes lost by translational tracking lose their template (the
@@ -204,9 +201,7 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
 
     # First successful track -> capture template, skip the check this
     # frame. cond-gated: in steady state no lane needs capture and the
-    # three [N, wh, ww] bilinear gathers (26 ms/frame of XLA gather
-    # fusions on the relay's honest clock — the whole affine kernel is
-    # 4.8 ms) are skipped entirely.
+    # three [N, wh, ww] bilinear gathers are skipped entirely.
     need_capture = tracked & ~aff.valid
     img1s, gx1, gy1 = pyr1.img[0], pyr1.gradx[0], pyr1.grady[0]
 
@@ -223,60 +218,15 @@ def affine_consistency_check(pyr1, pyr2, fl_before: FeatureState,
             y=jnp.where(need_capture, fl_before.y, a.y),
             A=jnp.where(cap, jnp.eye(2, dtype=jnp.float32)[None], a.A),
             valid=a.valid | need_capture,
-            # fresh templates take a few GN iterations on their first
-            # check — seed the tile-ordering hint mid-range so they
-            # group away from the 1-iteration steady lanes
-            nit=jnp.where(need_capture, 5, a.nit),
         )
 
     aff = lax.cond(jnp.any(need_capture), capture, lambda a: a, aff)
 
     check = tracked & aff.valid & ~need_capture
 
-    # Opt-in fused Pallas kernel (whole Gauss-Newton loop as ONE op —
-    # ops/pallas_affine_fused.py): the big lever on op-count-taxed
-    # backends (ROOFLINE.md §0). Resolved at trace time, like
-    # PFT_PALLAS_LK in ops/track.py.
-    import os
-    aff_mode = os.environ.get("PFT_PALLAS_AFFINE", "").lower()
-    use_vec = aff_mode in ("vec",)
-    use_fused = aff_mode in ("1", "on", "fused", "true")
-    f32_imgs = getattr(cfg, "image_dtype", "float32") == "float32"
-    vec_ok = fused_ok = False
-    if (use_vec or use_fused) and f32_imgs:
-        from .pallas_affine_fused import (fused_affine_available,
-                                          fused_affine_track_batch)
-        fused_ok = fused_affine_available(pyr2.img[0].shape, cfg)
-        if use_vec and fused_ok:
-            # feature-vectorized kernel (ops/pallas_affine_vec.py) with
-            # exact serial-kernel fallback for corridor-stale lanes
-            from .pallas_affine_vec import (vec_affine_available,
-                                            vec_affine_with_fallback)
-            vec_ok = vec_affine_available(pyr2.img[0].shape, cfg)
-    if vec_ok:
-        x, y, A, status, knit = vec_affine_with_fallback(
-            aff.img, pyr2.img[0], pyr2.gradx[0], pyr2.grady[0],
-            fl_after.x, fl_after.y, aff.A, check, cfg,
-            interpret=jax.default_backend() == "cpu",
-            order_hint=aff.nit, return_nit=True)
-        # sticky-with-decay hint update: hint = max(measured, 0.9*old).
-        # Straggler lanes oscillate (85% frame-to-frame cap overlap but
-        # 15% churn — probe_affine_persistence); remembering slowness
-        # for ~20 frames keeps intermittent stragglers grouped.
-        # Measured on the nit-history replay: prev-frame-only 1.41 ms
-        # of iteration work, sticky-decay 1.18, oracle 0.72.
-        decayed = (aff.nit * 9) // 10
-        aff = aff._replace(
-            nit=jnp.where(check, jnp.maximum(knit, decayed), decayed))
-    elif fused_ok and use_fused:
-        x, y, A, status = fused_affine_track_batch(
-            aff.img, pyr2.img[0], pyr2.gradx[0], pyr2.grady[0],
-            fl_after.x, fl_after.y, aff.A, check, cfg,
-            interpret=jax.default_backend() == "cpu")
-    else:
-        x, y, A, status = _affine_track_batch(
-            aff.img, pyr2.img[0], pyr2.gradx[0], pyr2.grady[0],
-            fl_after.x, fl_after.y, aff.A, check, cfg)
+    x, y, A, status = _affine_track_batch(
+        aff.img, pyr2.img[0], pyr2.gradx[0], pyr2.grady[0],
+        fl_after.x, fl_after.y, aff.A, check, cfg)
 
     failed = check & (status != KLT_TRACKED)
     new_x = jnp.where(check, jnp.where(failed, -1.0, x), fl_after.x)

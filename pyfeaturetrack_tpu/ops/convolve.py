@@ -11,8 +11,8 @@ Semantics reproduced exactly:
 * separable order is horizontal first, then vertical;
 * gradx = conv(img, deriv_x (x) gauss_y), grady = conv(img, gauss_x (x) deriv_y).
 
-TPU notes: images are float32; convs go through ``lax.conv_general_dilated``
-with ``precision=HIGHEST`` so XLA keeps full fp32 on the MXU and fuses the
+Notes: images are float32; convs go through ``lax.conv_general_dilated``
+with ``precision=HIGHEST`` so XLA keeps full fp32 (no TF32) and fuses the
 border masking. Shapes are static under jit (kernel widths are trace-time
 constants from ops/kernels.py).
 """
@@ -29,10 +29,10 @@ from .kernels import compute_kernels
 
 def _precision_from_env():
     """Conv precision mode, read ONCE at import (set the env var before
-    importing, or call set_conv_precision). PFT_CONV_PRECISION=fast opts
-    into the TPU's native bf16 conv path for the image/pyramid pipeline:
-    measured 1.6x faster pyramid builds at ~0.3% relative error on 0..255
-    images (tracks move <0.1 px) — a serving-mode knob. Anything else is
+    importing, or call set_conv_precision). PFT_CONV_PRECISION=fast lets
+    XLA choose its default conv precision for the image/pyramid pipeline
+    (TF32 on GPUs that have it), a serving-mode knob whose error the
+    parity tests do not cover. Anything else is
     exact fp32 (HIGHEST), which the oracle-parity guarantees assume.
     Selection (ops/select.py) always stays exact."""
     import os

@@ -86,12 +86,8 @@ def disparity_level(img1, gx1, gy1, img2, gx2, gy2, d, cfg
 
     Mirrors ops/track.track_feature_level's masked fixed-trip loop and
     status priorities exactly, specialized to the horizontal axis.
-
-    With ``PFT_PALLAS_LK`` set (trace-time, like ops/flow.flow_level)
-    the level runs in the gridded fused Pallas kernel's 1-D mode
-    instead — same 42x-class honest-clock lever as fused dense flow on
-    byte-taxed backends (DESIGN.md §3)."""
-    import os
+    It runs as XLA on every platform: the GPU level kernel
+    (ops/lk_gpu) covers the 2-D tracker only."""
     nrows, ncols = img1.shape
     hw, hh = cfg.window_width // 2, cfg.window_height // 2
     th = jnp.float32(cfg.min_displacement)
@@ -103,33 +99,6 @@ def disparity_level(img1, gx1, gy1, img2, gx2, gy2, d, cfg
     x1 = xg.ravel()
     y1 = yg.ravel()
     x2 = x1 - d.ravel()
-
-    lk_mode = os.environ.get("PFT_PALLAS_LK", "").lower()
-    use_vec = lk_mode in ("vec",)
-    use_fused = lk_mode in ("1", "on", "fused", "true")
-    if use_vec or use_fused:
-        from .pallas_lk_fused import (fused_level_available,
-                                      fused_track_level)
-        # the vec lane's one_d stale-fallback routes through the serial
-        # fused kernel, so both lanes need its VMEM gate here
-        if fused_level_available(img1.shape, cfg):
-            if use_vec:
-                from .pallas_lk_vec import (
-                    vec_level_available, vec_track_level_with_fallback)
-                if vec_level_available(img1.shape, cfg):
-                    nx, _, status, _ = vec_track_level_with_fallback(
-                        x1, y1, x2, y1, img1, gx1, gy1, img2, gx2, gy2,
-                        cfg, jnp.ones_like(x1, dtype=bool),
-                        interpret=jax.default_backend() == "cpu",
-                        one_d=True, shared_blocks=True)
-                    return ((x1 - nx).reshape(nrows, ncols),
-                            status.reshape(nrows, ncols))
-            nx, _, status, _ = fused_track_level(
-                x1, y1, x2, y1, img1, gx1, gy1, img2, gx2, gy2, cfg,
-                jnp.ones_like(x1, dtype=bool),
-                interpret=jax.default_backend() == "cpu", one_d=True)
-            return ((x1 - nx).reshape(nrows, ncols),
-                    status.reshape(nrows, ncols))
 
     w1, g1x, g1y = _gather3(img1, gx1, gy1, x1, y1, hw, hh)
     ok1 = _bounds_ok(x1, y1, hw, hh, ncols, nrows)

@@ -22,11 +22,11 @@ flow field (upsample_flow). Statuses are the finest level's. The
 float64 executable spec mirroring all of this is
 oracle/flow_oracle.py (SURVEY.md §0 oracle protocol).
 
-TPU shape notes: frame-1 window taps land on integer pixels (the grid),
+Shape notes: frame-1 window taps land on integer pixels (the grid),
 frame-2 taps are per-pixel subpixel gathers [H*W, h, w] — large but
 embarrassingly parallel; the whole level is one fused XLA program. At
-480x640 the level-0 working set is ~0.5 GB of fused gather buffers —
-fine for a 16 GB chip; shard the pixel axis over the mesh for larger
+480x640 the XLA level-0 working set is ~0.5 GB of fused gather buffers
+(the GPU level kernel, ops/lk_gpu, materializes none); shard the pixel axis over the mesh for larger
 frames (the feature-axis sharding of parallel/sharding.py applies
 unchanged, pixels being features here).
 """
@@ -40,7 +40,7 @@ import jax
 import jax.numpy as jnp
 
 from .interp import bilinear
-from .track import TrackPyramids, track_feature_level
+from .track import TrackPyramids, track_level
 
 
 class DenseFlow(NamedTuple):
@@ -83,15 +83,9 @@ def flow_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg
                ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """One pyramid level of dense LK: track_feature_level over the pixel
     grid, initialized at grid + (u, v). Returns (u, v, status) maps.
-
-    With ``PFT_PALLAS_LK`` set (resolved at trace time, like the sparse
-    dispatch in ops/track.track_features_pyramids) the level runs in the
-    fused Pallas kernel instead: pixels grid over SMEM-blocked chunks
-    with the level images VMEM-resident, so the [H*W, h, w] gather
-    buffers the XLA path materializes in HBM never exist — the lever on
-    byte-taxed backends (ROOFLINE.md dense-flow section).
+    The level runs through ops/track.track_level, so on CUDA the pixel
+    grid goes through the Pallas level kernel like any feature batch.
     """
-    import os
     nrows, ncols = img1.shape
     xg = jnp.tile(jnp.arange(ncols, dtype=jnp.float32)[None, :],
                   (nrows, 1))
@@ -102,34 +96,7 @@ def flow_level(img1, gx1, gy1, img2, gx2, gy2, u, v, cfg
     x2 = x1 + u.ravel()
     y2 = y1 + v.ravel()
     active = jnp.ones_like(x1, dtype=bool)
-    lk_mode = os.environ.get("PFT_PALLAS_LK", "").lower()
-    use_vec = lk_mode in ("vec",)
-    use_fused = lk_mode in ("1", "on", "fused", "true")
-    if use_vec:
-        # feature-vectorized lane (ops/pallas_lk_vec.py): every pixel
-        # rides the 32-lane tiled kernel with early exit — measured
-        # 0.69 s (serial fused) -> ~0.1 s/pair at 480x640
-        from .pallas_lk_vec import (vec_level_available_hbm,
-                                    vec_track_level_with_fallback)
-        if vec_level_available_hbm(img1.shape, cfg):
-            nx, ny, status, _ = vec_track_level_with_fallback(
-                x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg,
-                active, interpret=jax.default_backend() == "cpu",
-                shared_blocks=True)
-            return ((nx - x1).reshape(nrows, ncols),
-                    (ny - y1).reshape(nrows, ncols),
-                    status.reshape(nrows, ncols))
-    if use_fused:
-        from .pallas_lk_fused import (fused_level_available,
-                                      fused_track_level)
-        if fused_level_available(img1.shape, cfg):
-            nx, ny, status, _ = fused_track_level(
-                x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg,
-                active, interpret=jax.default_backend() == "cpu")
-            return ((nx - x1).reshape(nrows, ncols),
-                    (ny - y1).reshape(nrows, ncols),
-                    status.reshape(nrows, ncols))
-    nx, ny, status, _ = track_feature_level(
+    nx, ny, status, _ = track_level(
         x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg, active)
     return ((nx - x1).reshape(nrows, ncols),
             (ny - y1).reshape(nrows, ncols),

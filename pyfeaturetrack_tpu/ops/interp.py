@@ -2,7 +2,7 @@
 
 Reference parity: trackFeatures.py -> _interpolate. The reference samples
 one pixel at a time with a 4-tap bilinear read; here a whole (features x
-window) block of samples is gathered at once — the shape the TPU wants.
+window) block of samples is gathered at once — one batched gather instead of a scalar loop.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""Batched small-matrix linear algebra, TPU-shaped.
+"""Batched small-matrix linear algebra, unpivoted and vectorized.
 
 ``jnp.linalg.{det,solve,inv}`` on [N, P, P] batches of tiny matrices
-lowers to pivoted LU — serial scalar loops that crawl on TPU. The normal
+lowers to pivoted LU, whose row swaps serialize each tiny solve. The normal
 matrices in this framework (LK 2x2, affine 4x4/6x6, BA landmark 3x3) are
 symmetric (semi)definite, so unpivoted Gauss-Jordan / closed-form
-adjugates are numerically fine and fully vectorize on the VPU:
-measured ~100x faster than lax LinAlg at N=1000..4000.
+adjugates are numerically fine and fully vectorize as elementwise
+work over the batch.
 """
 
 from __future__ import annotations

@@ -11,10 +11,10 @@ the classic gradient-orthogonality iteration (Förstner / OpenCV
 
     [ Σ ∇I∇Iᵀ ] q = Σ (∇I∇Iᵀ) p        over the window around q.
 
-TPU shape: all N features iterate together — batched bilinear window
+Batched shape: all N features iterate together — batched bilinear window
 gathers of the gradient images (ops/interp.gather_window, the same
 machinery as the tracker), per-feature 2×2 normal systems solved in
-closed form on the VPU (no lax LinAlg — DESIGN.md rule 1), a fixed-trip
+closed form (no lax LinAlg — DESIGN.md rule 1), a fixed-trip
 ``fori_loop`` with per-lane convergence/out-of-bounds masks. One jitted
 program; differentiable like the rest of the compute path.
 

@@ -4,7 +4,7 @@ Reference parity: selectGoodFeatures.py -> KLTSelectGoodFeatures /
 KLTReplaceLostFeatures / _KLTSelectGoodFeatures / _sortPointList /
 _enforceMinimumDistance / _fillFeaturemap (see SURVEY.md section 3.1).
 
-TPU-first split of the work:
+Split of the work:
 
 * The O(H*W*w*h) windowed structure tensor + min-eigenvalue map — the hot
   part — runs on device as three separable box-filter convolutions over
@@ -90,24 +90,6 @@ def quantized_min_eig_map(gradx: jax.Array, grady: jax.Array,
     shared by the host selection path and the on-device selection in
     select_device.py.
     """
-    # Opt-in one-op Pallas form (PFT_PALLAS_SELECT=1, trace-time env
-    # read like PFT_PALLAS_LK): kills the 6-conv+fusion op tax of the
-    # refill stage on op-taxed backends (ROOFLINE.md §0). The kernel's
-    # fixed in-kernel accumulation differs from the conv lowering by at
-    # most one int step at ~0.01% of pixels (characterized in
-    # tests/test_pallas_eig.py) but is SELF-consistent: with the knob
-    # set, host and device selection both rank by kernel values, so
-    # lane parity is preserved (asserted e2e in the same test file).
-    import os
-    if os.environ.get("PFT_PALLAS_SELECT", "").lower() in (
-            "1", "on", "true"):
-        from .pallas_eig import min_eig_map_pallas, pallas_eig_available
-        if pallas_eig_available(gradx.shape):
-            return min_eig_map_pallas(
-                jnp.asarray(gradx, jnp.float32),
-                jnp.asarray(grady, jnp.float32),
-                window_width, window_height,
-                interpret=jax.default_backend() == "cpu")
     # upcast: gradients may be stored bfloat16 (cfg.image_dtype); the
     # structure-tensor sums always accumulate in float32
     eig = compute_min_eig_map(jnp.asarray(gradx, jnp.float32),

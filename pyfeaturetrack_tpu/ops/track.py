@@ -5,7 +5,7 @@ _computeIntensityDifference / _computeGradientSum /
 _compute2by2GradientMatrix / _compute2by1ErrorVector / _solveEquation and
 the lighting-insensitive variants (see SURVEY.md section 3.2).
 
-TPU-first inversion of the reference design: the reference loops
+Inversion of the reference design: the reference loops
 feature-at-a-time, pixel-at-a-time with early exits; here ALL features
 advance together through a fixed-trip iteration loop with per-feature
 active masks, so the whole tracker is one fused XLA program:
@@ -55,17 +55,9 @@ def build_track_pyramids(img: jax.Array, cfg) -> TrackPyramids:
 
     Reference parity: trackFeatures.py -> KLTTrackFeatures pyramid-build
     phase. Traceable (used inside callers' jits); top-level callers should
-    prefer build_track_pyramids_jit — eager op-by-op dispatch of the conv
-    chain is dramatically slower on the remote-compiled TPU backend.
+    prefer build_track_pyramids_jit, which compiles the conv chain into
+    one program instead of dispatching it op by op.
     """
-    import os
-    if os.environ.get("PFT_PALLAS", "").lower() in ("1", "on", "force",
-                                                    "true"):
-        from .pallas_pyramid import (build_track_pyramids_pallas,
-                                     pallas_pyramids_available)
-        if pallas_pyramids_available(img.shape[-2:], cfg):
-            with jax.named_scope("pft.pyramid_build_pallas"):
-                return build_track_pyramids_pallas(img, cfg)
     with jax.named_scope("pft.pyramid_build"):
         fimg = compute_smoothed_image(to_float_image(img), cfg.smooth_sigma)
         pyr = compute_pyramid(fimg, cfg.subsampling, cfg.nPyramidLevels,
@@ -234,32 +226,40 @@ def track_feature_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
     return st.x2, st.y2, status, st.iteration
 
 
-def _carry_supported(cfg) -> bool:
-    """Sequential-mode frame-1 window carry is exact only when the
-    level-scale round-trip x -> x/s**n -> (*s)*n is bitwise identity —
-    true for power-of-two subsampling (all reference configs)."""
-    s = cfg.subsampling
-    return float(s).is_integer() and int(s) > 0 and \
-        (int(s) & (int(s) - 1)) == 0
+def track_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, cfg,
+                active_in):
+    """One LK level, by the fastest route for the platform it lowers on.
+
+    On CUDA the level runs as one Pallas kernel (ops/lk_gpu) whenever
+    ``lk_gpu.kernel_supported`` takes its shape; every other platform,
+    and every level the gate refuses, runs track_feature_level. Both
+    give the same statuses; positions agree to float rounding.
+
+    Gradient rule: derivatives are always those of track_feature_level
+    (the kernel's in-program while loop has no reverse-mode rule), so
+    jax.grad / jax.jvp through a level work on every platform.
+    """
+    from . import lk_gpu
+    args = (x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2)
+    if not lk_gpu.kernel_supported(img1.shape, cfg):
+        return track_feature_level(*args, cfg, active_in)
+    return _kernel_or_xla_level(*args, cfg, active_in)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg",))
-def track_features_pyramids_carry(
-        pyr1: TrackPyramids, pyr2: TrackPyramids,
-        x: jax.Array, y: jax.Array, val: jax.Array,
-        cfg, *, x_init=None, y_init=None, carry=None
-        ) -> tuple[jax.Array, jax.Array, jax.Array, object]:
-    """track_features_pyramids + the sequential-mode level-0 window
-    carry (ops/pallas_lk_vec.TrackCarry): pass the carry returned by
-    the previous step (whose frame-2 pyramid is this step's ``pyr1`` —
-    the caller's cache contract, same as pyramid_last) and the vec
-    kernel skips the per-feature frame-1 fetch + extraction for every
-    lane that still sits at its previous final position. Returns
-    (x, y, val, carry_out); carry_out is None on non-vec paths.
-    Results are bitwise identical with or without a carry."""
-    return _track_features_pyramids_impl(pyr1, pyr2, x, y, val, cfg,
-                                         x_init=x_init, y_init=y_init,
-                                         carry=carry)
+@functools.partial(jax.custom_jvp, nondiff_argnums=(10,))
+def _kernel_or_xla_level(x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2,
+                         cfg, active_in):
+    from . import lk_gpu
+    return lax.platform_dependent(
+        x1, y1, x2, y2, img1, gx1, gy1, img2, gx2, gy2, active_in,
+        cuda=lambda *a: lk_gpu.track_level_kernel(*a[:10], cfg, a[10]),
+        default=lambda *a: track_feature_level(*a[:10], cfg, a[10]))
+
+
+@_kernel_or_xla_level.defjvp
+def _kernel_or_xla_level_jvp(cfg, primals, tangents):
+    return jax.jvp(lambda *a: track_feature_level(*a[:10], cfg, a[10]),
+                   primals, tangents)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
@@ -280,18 +280,6 @@ def track_features_pyramids(pyr1: TrackPyramids, pyr2: TrackPyramids,
     beyond the pyramid search range. Default (None) is exactly the
     reference behavior.
     """
-    nx, ny, nval, _ = _track_features_pyramids_impl(
-        pyr1, pyr2, x, y, val, cfg, x_init=x_init, y_init=y_init,
-        carry=None)
-    return nx, ny, nval
-
-
-def _track_features_pyramids_impl(pyr1: TrackPyramids,
-                                  pyr2: TrackPyramids,
-                                  x: jax.Array, y: jax.Array,
-                                  val: jax.Array,
-                                  cfg, *, x_init=None, y_init=None,
-                                  carry=None):
     nrows, ncols = pyr1.img[0].shape
     s = float(cfg.subsampling)
     n_levels = cfg.nPyramidLevels
@@ -312,27 +300,6 @@ def _track_features_pyramids_impl(pyr1: TrackPyramids,
     # 'broken' freezes lanes that hit SMALL_DET / OOB at a coarser level
     # (the reference breaks out of the level loop for those two codes only).
     broken = jnp.zeros_like(live)
-    carry_out = None
-
-    # Opt-in fused Pallas level kernel (whole iteration loop as ONE op —
-    # ops/pallas_lk_fused.py): the big lever on op-count-taxed backends
-    # (ROOFLINE.md §0). Resolved at trace time, like PFT_PALLAS above.
-    import os
-    lk_mode = os.environ.get("PFT_PALLAS_LK", "").lower()
-    use_vec = lk_mode in ("vec", "1", "on", "true")
-    use_fused = lk_mode in ("fused",) or (not use_vec and lk_mode in
-                                          ("1", "on", "true"))
-    if use_vec:
-        # feature-vectorized fused level kernel (ops/pallas_lk_vec.py)
-        # with exact fallback for corridor-stale lanes; preferred lane
-        # — no per-feature serialization. Levels whose images exceed
-        # the VMEM budget run the SAME kernel with HBM-resident images
-        # (per-feature async-DMA fetch), so 1080p level 0 stays fused.
-        from .pallas_lk_vec import (vec_level_available_hbm,
-                                    vec_track_level_with_fallback)
-    if use_fused:
-        from .pallas_lk_fused import (fused_level_available,
-                                      fused_track_level)
 
     for r in range(n_levels - 1, -1, -1):
         xloc, yloc = xloc * s, yloc * s
@@ -342,47 +309,11 @@ def _track_features_pyramids_impl(pyr1: TrackPyramids,
         xout = jnp.where(broken, xout, xout * s)
         yout = jnp.where(broken, yout, yout * s)
         active = live & ~broken
-        f32_imgs = getattr(cfg, "image_dtype", "float32") == "float32"
-        # the vec kernel handles bf16 image storage too: its wrapper
-        # upcasts at the padding copy, which equals the XLA bf16 path's
-        # upcast-at-gather values exactly (tests/test_pallas_lk_vec.py)
-        vec_ok = (use_vec
-                  and vec_level_available_hbm(pyr1.img[r].shape, cfg))
-        fused_ok = (use_fused and f32_imgs
-                    and fused_level_available(pyr1.img[r].shape, cfg))
-        # level-0 sequential window carry (TrackCarry): exact skip of
-        # the frame-1 fetch/extract for lanes still at their previous
-        # final position; emitted every step so sequential callers can
-        # thread it alongside pyramid_last
-        lvl_carry = (r == 0 and vec_ok and _carry_supported(cfg))
         with jax.named_scope(f"pft.lk_level_{r}"):
-            if vec_ok and lvl_carry:
-                nx, ny, lvl_status, _, carry_out = \
-                    vec_track_level_with_fallback(
-                        xloc, yloc, xout, yout,
-                        pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
-                        pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg,
-                        active,
-                        interpret=jax.default_backend() == "cpu",
-                        carry_in=carry, emit_carry=True)
-            elif vec_ok:
-                nx, ny, lvl_status, _ = vec_track_level_with_fallback(
-                    xloc, yloc, xout, yout,
-                    pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
-                    pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg,
-                    active, interpret=jax.default_backend() == "cpu")
-            elif fused_ok:
-                nx, ny, lvl_status, _ = fused_track_level(
-                    xloc, yloc, xout, yout,
-                    pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
-                    pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg,
-                    active, interpret=jax.default_backend() == "cpu")
-            else:
-                nx, ny, lvl_status, _ = track_feature_level(
-                    xloc, yloc, xout, yout,
-                    pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
-                    pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg,
-                    active)
+            nx, ny, lvl_status, _ = track_level(
+                xloc, yloc, xout, yout,
+                pyr1.img[r], pyr1.gradx[r], pyr1.grady[r],
+                pyr2.img[r], pyr2.gradx[r], pyr2.grady[r], cfg, active)
         xout = jnp.where(active, nx, xout)
         yout = jnp.where(active, ny, yout)
         status = jnp.where(active, lvl_status, status)
@@ -400,12 +331,7 @@ def _track_features_pyramids_impl(pyr1: TrackPyramids,
     new_x = jnp.where(live, jnp.where(lost, -1.0, xout), x)
     new_y = jnp.where(live, jnp.where(lost, -1.0, yout), y)
     new_val = jnp.where(live, final_status, val)
-    if carry is not None and carry_out is None:
-        # caller threads a carry but this trace has no vec level-0
-        # (config/env routed elsewhere): keep the pytree structure
-        # stable with an all-invalid carry
-        carry_out = carry._replace(ok=jnp.zeros_like(carry.ok))
-    return new_x, new_y, new_val, carry_out
+    return new_x, new_y, new_val
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",
@@ -459,18 +385,12 @@ def track_features_pyramids_fb(pyr1: TrackPyramids, pyr2: TrackPyramids,
                      fb_max_displacement=fb_max_displacement)
 
 
-def track_features(img1, img2, fl, cfg, pyr1: TrackPyramids | None = None,
-                   carry=None, return_carry: bool = False):
+def track_features(img1, img2, fl, cfg, pyr1: TrackPyramids | None = None):
     """High-level tracking entry: images in, updated FeatureState out.
 
     Reference parity: trackFeatures.py -> KLTTrackFeatures. Returns
     (new_fl, pyr2) where ``pyr2`` is the frame-2 pyramid cache to pass back
     in sequential mode (the reference stashes it on the context).
-
-    ``carry``/``return_carry`` (beyond-reference, perf): thread the
-    level-0 TrackCarry alongside the pyramid cache in sequential mode
-    (see track_features_pyramids_carry); results are bitwise identical
-    either way.
     """
     from ..errors import KLTGetVerbosity, verbose_print
     cfg = cfg.validated_window()
@@ -480,13 +400,11 @@ def track_features(img1, img2, fl, cfg, pyr1: TrackPyramids | None = None,
     nrows, ncols = pyr2.img[0].shape
     verbose_print(f"(KLT) Tracking {fl.nFeatures} features in a "
                   f"{ncols} by {nrows} image...  ")
-    nx, ny, nval, carry_out = track_features_pyramids_carry(
-        pyr1, pyr2, fl.x, fl.y, fl.val, cfg, carry=carry)
+    nx, ny, nval = track_features_pyramids(pyr1, pyr2, fl.x, fl.y, fl.val,
+                                           cfg)
     out = fl._replace(x=nx, y=ny, val=nval)
     if KLTGetVerbosity() > 0:
         import numpy as _np
         verbose_print(f"\t{int((_np.asarray(nval) >= 0).sum())} features "
                       "successfully tracked.")
-    if return_carry:
-        return out, pyr2, carry_out
     return out, pyr2

@@ -5,7 +5,7 @@ The reference repo (TimSC/PyFeatureTrack) was unavailable at build time
 specification: a direct, loop-level transcription of SURVEY.md sections 2-3
 (which reconstruct the reference's algorithms: selectGoodFeatures.py,
 trackFeatures.py, convolve.py, pyramid.py). It is deliberately slow and
-scalar — clarity over speed — and is compared against the TPU path in tests.
+scalar — clarity over speed — and is compared against the JAX path in tests.
 
 Status codes (reference parity: klt.py constants):
   KLT_TRACKED 0, KLT_NOT_FOUND -1, KLT_SMALL_DET -2, KLT_MAX_ITERATIONS -3,

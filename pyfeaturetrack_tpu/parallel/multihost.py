@@ -3,8 +3,8 @@
 SURVEY.md section 5.8: across hosts the framework uses standard JAX
 multi-controller SPMD — every host runs the same program,
 ``jax.distributed.initialize`` wires the slice together, and the mesh in
-parallel/sharding.py then spans all hosts' devices (collectives ride ICI
-within a slice, DCN across slices).
+parallel/sharding.py then spans all hosts' devices (collectives ride NVLink
+within a host, the network across hosts).
 
 Work placement for the tracker:
 
@@ -35,7 +35,7 @@ def initialize_cluster(coordinator_address: str | None = None,
 
     With explicit arguments they are passed straight to
     ``jax.distributed.initialize``. With no arguments and ``auto=True``,
-    auto-detection is ATTEMPTED (TPU pods / SLURM populate the needed
+    auto-detection is ATTEMPTED (SLURM and similar schedulers populate the needed
     environment); single-process runs where detection finds no cluster
     fall through cleanly. Returns a summary dict.
     """

@@ -10,7 +10,7 @@ the KLT problem are
   reference's inner for-loop proves it), a model-parallel-like axis with
   zero cross-feature communication.
 
-Communication is XLA collectives over ICI via ``jax.sharding`` +
+Communication is XLA collectives over the interconnect via ``jax.sharding`` +
 ``pjit``-style jit shardings on a `jax.sharding.Mesh`; images replicate
 over the feature axis (cheap: one 640x480 frame is ~1.2 MB) while feature
 state shards over it, so the batched bilinear gathers partition cleanly
@@ -89,8 +89,7 @@ def track_batch_sharded(imgs1, imgs2, x, y, val, cfg, mesh: Mesh):
 def _full_pair_batch(imgs1, imgs2, x, y, val, cfg):
     """Reference-complete per-pair body: track + affine consistency +
     on-device replace-lost, vmapped over frame pairs. Exercises every
-    pipeline stage under the mesh (VERDICT r1: the dryrun previously
-    proved only the translational path shards)."""
+    pipeline stage under the mesh."""
     from ..ops.affine import affine_consistency_check, make_affine_state
     from ..ops.select import quantized_min_eig_map
     from ..ops.select_device import select_features_from_eig_device
@@ -263,8 +262,8 @@ def multichip_chunked_sequence(n_devices: int, image_shape=(64, 96),
     (models/chunked.track_chunks_batched, replace-lost ON, micro-chained)
     with the CHUNK axis sharded over the mesh — one device per video
     chunk, the production shape for long-video chunk parallelism
-    (VERDICT r3 item 8: certify every multi-chip codepath in the
-    dryrun, not just single steps). Returns the [C, F, N] history."""
+    (every multi-device path is exercised, not just single steps).
+    Returns the [C, F, N] history."""
     from ..config import create_config
     from ..models.chunked import track_chunks_batched
     cfg = create_config().replace(sequentialMode=True).validated_window()

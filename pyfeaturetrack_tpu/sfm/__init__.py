@@ -3,7 +3,7 @@
 Greenfield subsystem (the reference has no SfM layer — SURVEY.md section
 5.7/5.8): consumes the tracker's FeatureTable and produces camera poses +
 landmarks. The Schur-complement reduction of the bundle adjustment runs as
-batched linear algebra on the MXU, with camera-block all-reduce over ICI
+batched linear algebra, with camera-block all-reduce over the interconnect
 when landmarks are sharded across devices.
 """
 

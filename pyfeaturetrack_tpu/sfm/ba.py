@@ -1,19 +1,19 @@
 """Bundle adjustment with Schur-complement reduction.
 
 Greenfield per SURVEY.md sections 5.8/7.2(8): the classic block-sparse BA
-normal equations, laid out the TPU way —
+normal equations, laid out as batched device programs —
 
 * per-observation residuals/Jacobians: one batched einsum pipeline [M, ...]
 * camera blocks U [C,6,6], landmark blocks V [L,3,3], cross blocks
   W [L,C,6,3]: segment-sums / scatter-adds over the observation axis
 * landmark marginalization: batched 3x3 inverses, then the reduced camera
-  system S = U - W V^-1 W^T as einsums on the MXU
+  system S = U - W V^-1 W^T as einsums
 * dense solve of the [6C, 6C] reduced system (cameras are few), batched
   back-substitution for landmarks.
 
 Distributed mode: landmarks (and their observations) shard over a mesh
 axis; every device builds its local V/W/S-contributions, the camera-block
-system is combined with ONE psum over ICI (exactly the "all-reduce of
+system is combined with ONE psum over the interconnect (exactly the "all-reduce of
 camera blocks" design in SURVEY.md section 5.8), the tiny reduced solve is
 replicated, and landmark back-substitution stays local to each shard.
 """
@@ -154,7 +154,7 @@ def _gn_step_dense(K, R, t, X, cam_idx, pt_idx, uv, w, damping,
     U, V, W, b_c, b_p = _build_blocks(r, Jc, Jp, cam_idx, pt_idx,
                                       n_cameras, n_points)
     V = _damp(V, damping)
-    V_inv, _ = inv3x3(V)  # closed form: batched lax LinAlg crawls on TPU
+    V_inv, _ = inv3x3(V)  # closed form, no pivoted LU
 
     T1 = jnp.einsum("lcij,ljk->lcik", W, V_inv, precision=_PREC)
     S_red = jnp.einsum("lcik,ldmk->cidm", T1, W, precision=_PREC)
@@ -185,13 +185,13 @@ def _gn_step_sharded_body(K, R, t, X_loc, cam_idx, pt_idx_loc, uv, w,
     U, V, W, b_c, b_p = _build_blocks(r, Jc, Jp, cam_idx, pt_idx_loc,
                                       n_cameras, n_points_loc)
     V = _damp(V, damping)
-    V_inv, _ = inv3x3(V)  # closed form: batched lax LinAlg crawls on TPU
+    V_inv, _ = inv3x3(V)  # closed form, no pivoted LU
 
     T1 = jnp.einsum("lcij,ljk->lcik", W, V_inv, precision=_PREC)
     S_red = jnp.einsum("lcik,ldmk->cidm", T1, W, precision=_PREC)
     b_red = jnp.einsum("lcik,lk->ci", T1, b_p, precision=_PREC)
 
-    # ONE all-reduce of the camera-block system over ICI.
+    # ONE all-reduce of the camera-block system over the interconnect.
     U = lax.psum(U, axis)
     b_c = lax.psum(b_c, axis)
     S_red = lax.psum(S_red, axis)
@@ -215,7 +215,7 @@ def bundle_adjust(problem: BAProblem, R0, t0, X0, n_iters: int = 10,
     """Run ``n_iters`` damped Gauss-Newton steps. Returns
     (R, t, X, costs); ``costs`` is a DEVICE array of per-iteration
     observation costs (pull it with np.asarray only when needed — a
-    device->host transfer serializes later dispatch on relay backends).
+    device->host transfer waits for every queued step).
 
     With ``mesh``, landmarks and their observations are sharded over
     ``axis``: observations must be grouped so that shard d holds

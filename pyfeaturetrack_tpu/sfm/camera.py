@@ -10,10 +10,10 @@ undistorted first. This module provides the two standard models —
 between DISTORTED and IDEAL normalized coordinates, plus pixel-level
 helpers through the intrinsics K.
 
-TPU shape: undistortion is a fixed-trip iteration (fixed-point for
+Batched shape: undistortion is a fixed-trip iteration (fixed-point for
 radtan, Newton on the ray angle for fisheye) vectorized over all
 points — no per-point control flow, so a million-corner undistort is
-one fused VPU program. Inversion accuracy at typical lens strengths is
+one fused elementwise program. Inversion accuracy at typical lens strengths is
 <1e-7 normalized units in 10 iterations (tests/test_camera.py).
 
 The tracker itself ALWAYS runs on raw images (LK in image space does

@@ -6,12 +6,12 @@ BOOTSTRAP of BASELINE.md config 5's "full front-end": the tracker's
 correspondences alone, with no external initial poses, seed the
 pose-graph/BA back-end.
 
-TPU-first shape: RANSAC is not a sequential hypothesis loop but ONE
+Batched shape: RANSAC is not a sequential hypothesis loop but ONE
 batched program — S minimal 8-point subsets are solved simultaneously
 ([S, 9, 9] normal matrices, smallest eigenvector by inverse-power
 iteration on the unpivoted Gauss-Jordan solver in ops/linalg — lax's
-pivoted eig/svd on tiny batched matrices crawls on TPU, DESIGN.md §2),
-and all S x N Sampson errors are two einsums on the VPU. The only host
+pivoted eig/svd on tiny batched matrices serializes each solve,
+DESIGN.md §2), and all S x N Sampson errors are two einsums. The only host
 steps are the 3x3 SVD enforcing the essential structure of the single
 winning E (microseconds, once per bootstrap) and the 4-way cheirality
 argmax.
@@ -55,7 +55,7 @@ def smallest_eigvec(M, n_iter: int = 16):
     """Unit eigenvector of the smallest eigenvalue of symmetric PSD
     [..., P, P] batches, by inverse-power iteration on (M + eps I) —
     every solve is the statically-unrolled Gauss-Jordan (SPD-safe), so
-    the whole batch stays on the VPU."""
+    the whole batch stays one vectorized program."""
     p = M.shape[-1]
     tr = jnp.trace(M, axis1=-2, axis2=-1)[..., None, None]
     A = M + (1e-9 * tr / p + 1e-12) * jnp.eye(p, dtype=M.dtype)
@@ -92,7 +92,7 @@ def sampson_error(E, x1, x2):
     x2h = jnp.concatenate([x2, jnp.ones_like(x2[..., :1])], -1)
     Ex1 = jnp.einsum("...ij,...nj->...ni", E, x1h, precision=_PREC)
     Etx2 = jnp.einsum("...ji,...nj->...ni", E, x2h, precision=_PREC)
-    num = jnp.einsum("...ni,...ni->...n", x2h, Ex1) ** 2
+    num = jnp.einsum("...ni,...ni->...n", x2h, Ex1, precision=_PREC) ** 2
     den = (Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2
            + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2)
     return num / (den + 1e-30)

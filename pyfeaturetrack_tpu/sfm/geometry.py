@@ -1,7 +1,7 @@
 """SO(3)/SE(3) primitives and the pinhole camera model.
 
 All functions are batched (leading dims broadcast) and jit/vmap-friendly;
-float32 on TPU with HIGHEST-precision matmuls in the solve paths.
+float32 with HIGHEST-precision matmuls in the solve paths.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ _EPS = 1e-8
 
 
 def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Full-fp32 matmul (TPU default matmul precision is bf16 — fatal for
-    rotation algebra)."""
+    """Full-fp32 matmul (the default precision may round operands to
+    TF32 or bf16 — fatal for rotation algebra)."""
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 

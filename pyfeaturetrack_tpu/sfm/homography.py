@@ -11,7 +11,7 @@ scores) and initializes from whichever wins; a homography that turns
 out to be a pure rotation is reported degenerate instead of fabricating
 parallax-free landmarks.
 
-TPU-first shape, same as sfm/epipolar.py: RANSAC is ONE batched device
+Batched shape, same as sfm/epipolar.py: RANSAC is ONE batched device
 program — S minimal 4-point DLT systems ([S, 9, 9] normal matrices,
 smallest eigenvector by inverse-power iteration on the unrolled
 Gauss-Jordan solver) and all S x N symmetric transfer errors as

@@ -11,8 +11,8 @@ Residual per edge: r = [ log(R_meas^T R_ij_pred),  t_ij_pred - t_meas ].
 Gauss-Newton with autodiff Jacobians: residuals are differentiated w.r.t.
 a left-multiplicative tangent perturbation xi [C, 6] at zero (jacfwd), the
 [E*6, C*6] system is solved densely with pose 0 pinned — appropriate for
-the keyframe-scale graphs the tracker front-end produces (the batched
-linear algebra rides the MXU; block-sparse assembly is the scale-up path).
+the keyframe-scale graphs the tracker front-end produces (batched dense
+linear algebra; block-sparse assembly is the scale-up path).
 """
 
 from __future__ import annotations

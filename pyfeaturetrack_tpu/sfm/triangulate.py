@@ -16,10 +16,11 @@ def triangulate_dlt(K: jax.Array, Rs: jax.Array, ts: jax.Array,
 
     Standard DLT: for each observation, two rows of A X_h = 0 with
     A rows = u * P_2 - P_0 and v * P_2 - P_1 (P = K [R | t]); solved per
-    landmark via the normal equations on the MXU (masked rows are zero).
+    landmark via the normal equations (masked rows are zero).
     """
     P = jnp.einsum("ij,cjk->cik", K, jnp.concatenate(
-        [Rs, ts[..., None]], axis=-1))  # [C, 3, 4]
+        [Rs, ts[..., None]], axis=-1),
+        precision=lax.Precision.HIGHEST)  # [C, 3, 4]
 
     u = uvs[..., 0]  # [L, C]
     v = uvs[..., 1]
@@ -34,7 +35,7 @@ def triangulate_dlt(K: jax.Array, Rs: jax.Array, ts: jax.Array,
     M = AtA[:, :3, :3]
     b = -AtA[:, :3, 3]
     # Regularize singular systems (too few views) minimally; closed-form
-    # batched 3x3 inverse (lax LinAlg's pivoted LU crawls on TPU batches).
+    # batched 3x3 inverse (no pivoted LU).
     from ..ops.linalg import inv3x3
     eye = jnp.eye(3, dtype=A.dtype) * 1e-6
     Minv, _ = inv3x3(M + eye[None])

@@ -137,7 +137,6 @@ class VisualOdometry:
                 sequentialMode=True).validated_window()
             self._dev_state = None     # (pyr, x, y, val, aff)
             self._dev_buf: list = []
-            self._dev_carry = None     # level-0 window carry
         else:
             # fb_max_displacement: forward-backward gate on every
             # tracked frame (ops/track.fb_reject) — prunes tracks that
@@ -269,16 +268,13 @@ class VisualOdometry:
         pyr, x, y, val, aff = self._dev_state
         kf_img = self._dev_buf[-1]  # the keyframe's own frame
         if len(self._dev_buf) == 1:
-            pyr, x, y, val, aff, _, self._dev_carry = \
-                sequence_step_device(
-                    pyr, self._dev_buf[0], x, y, val, self.cfg, True,
-                    aff=aff, carry=self._dev_carry)
+            pyr, x, y, val, aff, _ = sequence_step_device(
+                pyr, self._dev_buf[0], x, y, val, self.cfg, True, aff=aff)
             hist_v = np.asarray(val)[None]
         else:
-            pyr, hist, (x, y, val), aff, _, self._dev_carry = \
-                sequence_chain_device(
-                    pyr, tuple(self._dev_buf), x, y, val, self.cfg, True,
-                    aff=aff, carry=self._dev_carry)
+            pyr, hist, (x, y, val), aff, _ = sequence_chain_device(
+                pyr, tuple(self._dev_buf), x, y, val, self.cfg, True,
+                aff=aff)
             hist_v = np.asarray(hist[2])
         self._dev_state = (pyr, x, y, val, aff)
         self._dev_buf = []

@@ -3,7 +3,7 @@ path.
 
 Reference parity: the reference's examples load each frame with a
 blocking ``pgmReadFile`` right before tracking it (SURVEY.md section
-3.5). At TPU serving rates the tracker dispatch takes tens of
+3.5). At serving rates the tracker dispatch takes tens of
 microseconds while a disk read + decode takes tens of microseconds to
 milliseconds — left serial, the *loader* becomes the pipeline's
 bottleneck. :class:`FrameLoader` moves read+decode into a worker pool

@@ -1,6 +1,6 @@
 """Loader for the native (C++) host-side components.
 
-The compute path is JAX/XLA/Pallas on the TPU; the runtime pieces that are
+The compute path is JAX/XLA/Pallas on the device; the runtime pieces that are
 inherently host-sequential (greedy min-distance suppression) are C++,
 compiled on demand with the system toolchain and loaded via ctypes
 (no pybind11 in this environment). Falls back cleanly when no compiler

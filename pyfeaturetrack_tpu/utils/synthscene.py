@@ -100,7 +100,7 @@ def circuit_scene(n_frames: int = 520, h: int = 240, w: int = 320,
     revisit: the camera drives ``laps`` laps of an ellipse (tangent
     yaw), so past ~1 lap it re-enters previously mapped territory —
     the loop-closure shape — while the landmark band streams past for
-    hundreds of keyframes before that (VERDICT r4 item 7).
+    hundreds of keyframes before that.
 
     Returns (K, Rs, ts, cs, pts) like corridor_scene."""
     rng = np.random.default_rng(seed)
@@ -159,7 +159,7 @@ def run_vo_on_circuit(n_frames: int = 520, h: int = 240, w: int = 320,
                       photometric: bool = True,
                       loop_closure: bool = True, laps: float = 1.08,
                       finalize: bool = True):
-    """Config-5 LONG-horizon stress (VERDICT r4 item 7): 500+ frame
+    """Config-5 LONG-horizon stress: 500+ frame
     closed circuit with a genuine revisit, photometric gain/bias
     drift, loop closure, and KITTI-format ATE/RPE gates. Returns the
     run_vo_on_corridor metric dict plus loop/photometric flags."""

@@ -192,32 +192,3 @@ def test_lr_consistency_shapes_and_trivial_pass():
     assert e.shape == np.asarray(dl.d).shape
     assert v[10:-10, 10:-10].mean() > 0.8
     assert np.median(e[v]) < 0.05
-
-
-def test_dense_disparity_fused_matches_xla(monkeypatch):
-    """PFT_PALLAS_LK=1 routes every pixel through the fused kernel's
-    1-D mode: status maps bit-equal to the XLA path (interpret mode),
-    disparity to float tolerance. Eager __wrapped__ calls so the env
-    dispatch re-resolves per call."""
-    from pyfeaturetrack_tpu.ops.pallas_lk_fused import \
-        fused_level_available
-    cfg = create_config().validated_window()
-    assert fused_level_available((64, 96), cfg)
-    right = make_textured_image(64, 96, seed=21)
-    left = shift_image_bilinear(right, 2.5, 0.0)
-    p_l, p_r = _pyramids(left, right, cfg)
-
-    monkeypatch.delenv("PFT_PALLAS_LK", raising=False)
-    ref = dense_disparity_pyramids.__wrapped__(p_l, p_r, cfg,
-                                               max_disparity=8.0)
-    monkeypatch.setenv("PFT_PALLAS_LK", "1")
-    fused = dense_disparity_pyramids.__wrapped__(p_l, p_r, cfg,
-                                                 max_disparity=8.0)
-
-    np.testing.assert_array_equal(np.asarray(fused.status),
-                                  np.asarray(ref.status))
-    ok = np.asarray(ref.status) == 0
-    assert ok.mean() > 0.4
-    np.testing.assert_allclose(np.asarray(fused.d), np.asarray(ref.d),
-                               atol=2e-3)
-    assert abs(np.median(np.asarray(fused.d)[ok]) - 2.5) < 0.2

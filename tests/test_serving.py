@@ -206,12 +206,17 @@ def test_prefetch_depth_validation():
         list(prefetch_to_device([], depth=0))
 
 
-def test_batched_streaming_stream_loop_matches_vmapped(monkeypatch):
-    """Round 5 (VERDICT r4 item 4): with a Pallas LK lane enabled the
-    batched tick runs each stream through the fused kernels in a
-    Python loop inside one program (Mosaic kernels don't vmap). Same
-    math: statuses must equal the vmapped XLA tick exactly, positions
-    to the kernels' interpret-mode tolerance."""
+def test_batched_streaming_through_level_kernel_matches_xla(monkeypatch):
+    """The batched tick vmaps one stream body over the stream axis; with
+    its LK levels on the GPU level kernel (interpret mode, routed where
+    CUDA would route them) the kernel takes the stream axis as a grid
+    dimension. Statuses must equal the XLA tick exactly, positions to
+    float tolerance."""
+    import jax
+
+    from pyfeaturetrack_tpu.ops import lk_gpu
+    from pyfeaturetrack_tpu.ops import track as track_mod
+
     B, n = 3, 20
     cfg = create_config(mindist=8)
     streams = [_rolling_frames(n_frames=6, shift=3 + b, seed=40 + b)
@@ -224,13 +229,13 @@ def test_batched_streaming_stream_loop_matches_vmapped(monkeypatch):
             bt.feed(np.stack([streams[b][i] for b in range(B)]))
         return bt.table()
 
-    monkeypatch.delenv("PFT_PALLAS_LK", raising=False)
-    monkeypatch.delenv("PFT_PALLAS_SELECT", raising=False)
     rx, ry, rv = run()
-    monkeypatch.setenv("PFT_PALLAS_LK", "vec")
-    monkeypatch.setenv("PFT_PALLAS_SELECT", "1")
-    import jax
-    jax.clear_caches()   # env knobs are trace-time
+
+    def routed(*a):
+        return lk_gpu.track_level_kernel(*a[:10], a[10], a[11],
+                                         interpret=True)
+    monkeypatch.setattr(track_mod, "track_level", routed)
+    jax.clear_caches()   # the routed level must be traced afresh
     gx, gy, gv = run()
     jax.clear_caches()
     np.testing.assert_array_equal(gv, rv)

@@ -226,7 +226,7 @@ def test_track_all_dead_features_is_noop():
 
 
 def test_bfloat16_image_storage_mode():
-    """cfg.image_dtype='bfloat16' (TPU-only storage knob, beyond the
+    """cfg.image_dtype='bfloat16' (storage knob, beyond the
     reference): cached pyramid levels are stored bf16 while blending and
     reductions stay f32 — tracks must agree with the f32 path to the
     rounding of 8-bit-mantissa intensities (sub-0.1 px)."""
